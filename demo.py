@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""End-to-end demo: the reference's Gazebo two-UAV scenario, TPU-native.
+"""End-to-end demo: the reference's Gazebo two-UAV scenario.
 
 Mirrors tmux/simulation/session.yml: one 'observer' UAV hovers with an
 OS-128-class sensor while a 'target' UAV flies a circular trajectory through
@@ -25,6 +25,10 @@ def main():
     ap.add_argument("--small", action="store_true", help="small grid (CPU-friendly)")
     ap.add_argument("--profile", default="", help="jax.profiler trace dir (the valgrind profile:=true analogue)")
     args = ap.parse_args()
+
+    from vofod_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from vofod_tpu.config import Box, DynParams, SensorConfig, VoFODConfig, load_config
     from vofod_tpu.io.scan_source import Scene, hover_pose, render_scan

@@ -2,7 +2,7 @@
 //
 // The reference performs filterAndTransform + VoxelGridWeighted on the CPU
 // (src/vofod_nodelet.cpp:619-686, src/voxel_grid_weighted.cpp:119-190); this
-// is the TPU framework's equivalent for the PREBINNED ingest path: the host
+// is this framework's equivalent for the PREBINNED ingest path: the host
 // bins each scan into a packed dense uint8 count grid (low 6 bits = filtered
 // point count clamped to 63 — the EMA weight 2^-count is f32-identical
 // beyond that — bit 7 = any-return blocker flag) that rides the device

@@ -1,7 +1,7 @@
 // Native runtime components for vofod_tpu.
 //
 // Fast ASCII point-cloud parsing (the reference's pc_loader is C++,
-// src/pc_loader.cpp; this is its standalone equivalent for the TPU
+// src/pc_loader.cpp; this is its standalone equivalent for this
 // framework's host runtime) plus a lock-free SPSC scan ring buffer used by
 // the streaming data loader (the nodelet's subscriber queue analogue,
 // ref mrs_lib::SubscribeHandler usage at vofod_nodelet.cpp:1102-1122).

@@ -1,7 +1,7 @@
 """NumPy reference implementations of the reference-C++ semantics.
 
 Written from the behavior of /root/reference (cited per function), these are
-the golden oracles the TPU kernels are tested against on tiny grids.
+the golden oracles the JAX kernels are tested against on tiny grids.
 """
 
 from __future__ import annotations
@@ -273,3 +273,49 @@ def _counted_spec_np(pts, inten, leaf, thr, out_shape):
         if i > thr:
             sure[c[2], c[1], c[0]] += 1
     return counts, sure
+
+
+def gate_faces_np(gate, lut, active, R):
+    """Angular-gate faces (ops/raycast.py gate_faces) in float64, an
+    independent per-texel ground truth: pool the active image, invert the
+    TRUE per-row elevation table per texel (searchsorted + linear
+    extrapolation with the end-segment slope), tent-sample."""
+    H, W = lut.height, lut.width
+    G = np.asarray(active, np.float64).reshape(
+        gate.n_rows, gate.pool_v, gate.n_cols, gate.pool_h
+    ).mean(axis=(1, 3))
+    el_row = np.arcsin(
+        np.clip(lut.directions.reshape(H, W, 3)[..., 2], -1, 1)
+    ).mean(axis=1)
+
+    d_s = gate.face_dirs.reshape(-1, 3).astype(np.float64) @ np.asarray(R)
+    el = np.arcsin(np.clip(d_s[:, 2], -1, 1))
+    az = np.arctan2(d_s[:, 1], d_s[:, 0])
+
+    # invert el_row (monotone decreasing for top-down tables)
+    sgn = 1.0 if el_row[-1] > el_row[0] else -1.0
+    f = sgn * el_row
+    t = sgn * el
+    seg = np.clip(np.searchsorted(f, t, side="right") - 1, 0, H - 2)
+    row_f = seg + (t - f[seg]) / (f[seg + 1] - f[seg])
+    g_r = (row_f + 0.5) / gate.pool_v - 0.5
+    g_c = np.mod(
+        ((az - gate.az_b) / gate.az_a + 0.5) / gate.pool_h - 0.5,
+        gate.col_period,
+    )
+    kr = np.arange(gate.n_rows)
+    kc = np.arange(gate.n_cols)
+    w_r = np.maximum(0.0, 1.0 - np.abs(g_r[:, None] - kr[None, :]))
+    d0 = np.abs(g_c[:, None] - kc[None, :])
+    dwrap = np.minimum(
+        d0,
+        np.minimum(
+            np.abs(g_c[:, None] - gate.col_period - kc[None, :]),
+            np.abs(g_c[:, None] + gate.col_period - kc[None, :]),
+        ),
+    )
+    w_c = np.maximum(0.0, 1.0 - dwrap)
+    w_c = w_c / np.maximum(w_c.sum(axis=-1, keepdims=True), 1e-6)
+    vals = np.sum(w_r * (w_c @ G.T), axis=-1)
+    F = gate.face_dirs.shape[1]
+    return vals.reshape(6, F, F)

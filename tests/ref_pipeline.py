@@ -58,7 +58,7 @@ def _in_box(pts, lo, hi):
 class RefPipeline:
     """NumPy replay of the reference pipeline (see module docstring).
 
-    Drives the same VoFODConfig / DynParams / XyzLut as the TPU step, so a
+    Drives the same VoFODConfig / DynParams / XyzLut as the JAX step, so a
     parity test feeds identical scans to both and compares outputs.
     """
 

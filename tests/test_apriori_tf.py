@@ -257,7 +257,7 @@ class TestTransformedAprioriParity:
         )
         step = make_step_fn(cfg, lut, raycast_mode="exact", donate=False)
         state, dyn_arr = node.state, dyn.as_arrays()
-        oracle_out, tpu_out = [], []
+        oracle_out, step_out = [], []
         for ranges, inten, pose in scans:
             oracle_out.append(ref.step(ranges, inten, pose))
             state, out = step(
@@ -269,14 +269,14 @@ class TestTransformedAprioriParity:
                 ),
                 dyn_arr,
             )
-            tpu_out.append(out)
-        return oracle_out, tpu_out
+            step_out.append(out)
+        return oracle_out, step_out
 
     def test_detections_match(self, setup, runs):
         cfg = setup[0]
-        oracle_out, tpu_out = runs
+        oracle_out, step_out = runs
         n_det_scans = 0
-        for i, ((odets, _), out) in enumerate(zip(oracle_out, tpu_out)):
+        for i, ((odets, _), out) in enumerate(zip(oracle_out, step_out)):
             tdets = [
                 dict(
                     position=np.asarray(out.detections.position[k]),

@@ -116,7 +116,7 @@ class TestSaveRestore:
     def test_fleet_grid_2d_roundtrip(self, tmp_path):
         """The 2D streams×grid fleet state (batch over "data", grid Z over
         "grid") checkpoints and restores with both sharding axes intact —
-        resume works for the pod-slice fleet shape too."""
+        resume works for the multi-host fleet shape too."""
         from vofod_tpu.parallel.grid_step import (
             _fleet_state_specs,
             init_fleet_grid_state,

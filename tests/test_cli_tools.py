@@ -162,16 +162,12 @@ def test_serve_fleet_latency_summary(tmp_path, capsys):
 
 
 def test_serve_fleet_streams_auto(tmp_path, capsys, monkeypatch):
-    """--streams auto probes the transport and picks the knee; the policy
-    itself is pure (test_fleet tests it) — here the CLI wiring."""
+    """--streams auto takes the fleet's default knee; the policy itself is
+    pure (test_pick_stream_knee_policy) — here the CLI wiring."""
     import vofod_tpu.runtime.fleet as fleet_mod
     from vofod_tpu.tools.serve_fleet import main
 
-    monkeypatch.setattr(fleet_mod, "probe_transport_rtt", lambda: 31.0)
-    monkeypatch.setattr(
-        fleet_mod, "pick_stream_knee",
-        lambda rtt, n_dev: (8, "relay") if rtt >= 5.0 else (999, "attached"),
-    )
+    monkeypatch.setattr(fleet_mod, "pick_stream_knee", lambda n_dev: n_dev)
     scans = _record(tmp_path, n=4)
     seny = str(tmp_path / "sen.yaml")
     with open(seny, "w") as f:
@@ -187,16 +183,15 @@ def test_serve_fleet_streams_auto(tmp_path, capsys, monkeypatch):
     )
     assert rc == 0
     err = capsys.readouterr().err
-    assert "--streams auto: probed rtt 31.0 ms (relay) -> 8 streams" in err
+    assert "--streams auto: unmeasured default -> 8 streams" in err
     assert "2 ticks x 8 local streams" in err
 
 
 def test_pick_stream_knee_policy():
-    """The measured knee policy (DESIGN §7): relay-bound transports get the
-    round-4 measured 12/chip; fast transports the extrapolated 32/chip."""
+    """The default knee: 32 streams per device, scaled by the device count
+    (unmeasured until a cadence-validated knee replaces it)."""
     from vofod_tpu.runtime.fleet import pick_stream_knee
 
-    assert pick_stream_knee(31.0, 1) == (12, "relay")
-    assert pick_stream_knee(5.0, 2) == (24, "relay")
-    assert pick_stream_knee(0.4, 1) == (32, "attached")
-    assert pick_stream_knee(0.4, 4) == (128, "attached")
+    assert pick_stream_knee(1) == 32
+    assert pick_stream_knee(4) == 128
+    assert pick_stream_knee() == 32

@@ -351,7 +351,7 @@ class TestGridShardedStep:
         item 7): exact DDA raycast (replicated walk, ownership-filtered
         scatter) and exact-census sepclusters (halo'd coarse labeling +
         psum'd census) must match the unsharded exact step bit-for-bit, so
-        parity studies can run at beyond-HBM scale."""
+        parity studies can run beyond one device's memory."""
         cfg = sharded_config(sepclusters_exact_census=True)
         dyn = DynParams(raycast_weight_coefficient=0.5)
         lut = make_lut(cfg.sensor)

@@ -1,4 +1,4 @@
-"""Unit tests for the core TPU ops against NumPy oracles."""
+"""Unit tests for the core JAX ops against NumPy oracles."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,6 @@
 """End-to-end: synthetic scene -> scans -> detections on the hovering target.
 
-The TPU analogue of the reference's Gazebo two-UAV acceptance check
+The analogue of the reference's Gazebo two-UAV acceptance check
 (tmux/simulation/session.yml; "you should see... the red sphere is the
 detection", README.md:54-58): a ground plane, an apriori map patch to
 bootstrap the background (like config/apriori_maps/sim.yaml), and a floating

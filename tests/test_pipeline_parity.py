@@ -1,11 +1,11 @@
-"""End-to-end parity: TPU step vs the whole-pipeline NumPy oracle.
+"""End-to-end parity: JAX step vs the whole-pipeline NumPy oracle.
 
 The oracle (tests/ref_pipeline.py) replays the reference's full processMsg +
 raycast_cloud + updateSeparatedBGClusters semantics scan-for-scan under the
 deterministic schedule.  A 52-scan moving-sensor scenario (background
 bootstrap from live scans, then a flying sphere target) runs through:
 
-* the TPU step in reference-exact modes (``raycast_mode="exact"``,
+* the JAX step in reference-exact modes (``raycast_mode="exact"``,
   ``sepclusters_exact_census=True``, ``compat_hascloseto_bounds=True``) —
   detection-level agreement is asserted scan-for-scan;
 * the production configuration (plane-sweep raycast, local-density
@@ -14,7 +14,7 @@ bootstrap from live scans, then a flying sphere target) runs through:
   the same oracle and asserted within the documented bounds
   (DESIGN.md §9 parity ledger).
 
-Known bounded deviations of the TPU step (DESIGN.md §4): explore queries are
+Known bounded deviations of the JAX step (DESIGN.md §4): explore queries are
 evaluated independently per scan (the reference's intra-scan sequential
 demotion coupling is not reproduced), and demotions apply only to fully
 floating clusters.  The scenario exercises real demotions; agreement is
@@ -106,9 +106,9 @@ def oracle_run(scenario):
     return out, ref
 
 
-def run_tpu(cfg, lut, scans, raycast_mode, dyn=None, mask=None,
+def run_step(cfg, lut, scans, raycast_mode, dyn=None, mask=None,
             raycast_every=1, dyn_schedule=None):
-    """Replay ``scans`` through the TPU step; returns ([(dets, diag)], state).
+    """Replay ``scans`` through the JAX step; returns ([(dets, diag)], state).
 
     The single parity harness for every whole-pipeline parity suite (the
     fuzz reuses it with its drawn ``dyn``/``mask``/``raycast_every`` instead
@@ -153,21 +153,21 @@ def run_tpu(cfg, lut, scans, raycast_mode, dyn=None, mask=None,
 
 
 class TestExactModeParity:
-    """TPU exact modes vs the oracle: detection-level agreement per scan."""
+    """JAX exact modes vs the oracle: detection-level agreement per scan."""
 
     @pytest.fixture(scope="class")
-    def tpu_run(self, scenario):
+    def step_run(self, scenario):
         cfg, lut, scans = scenario
         cfg_t = parity_config(
             sepclusters_exact_census=True, compat_hascloseto_bounds=True
         )
-        return run_tpu(cfg_t, lut, scans, raycast_mode="exact")
+        return run_step(cfg_t, lut, scans, raycast_mode="exact")
 
-    def test_detections_match(self, oracle_run, tpu_run):
+    def test_detections_match(self, oracle_run, step_run):
         oracle_out, _ = oracle_run
-        tpu_out, _ = tpu_run
+        step_out, _ = step_run
         for i, ((odets, odiag), (tdets, tdiag)) in enumerate(
-            zip(oracle_out, tpu_out)
+            zip(oracle_out, step_out)
         ):
             assert len(tdets) == len(odets), (
                 f"scan {i}: {len(tdets)} detections vs oracle {len(odets)}"
@@ -200,10 +200,10 @@ class TestExactModeParity:
         n_det_scans = sum(1 for d, _ in oracle_out if d)
         assert n_det_scans >= 10  # the target is tracked, not a one-off
 
-    def test_diagnostics_match(self, oracle_run, tpu_run):
+    def test_diagnostics_match(self, oracle_run, step_run):
         oracle_out, _ = oracle_run
-        tpu_out, _ = tpu_run
-        for i, ((_, odiag), (_, tdiag)) in enumerate(zip(oracle_out, tpu_out)):
+        step_out, _ = step_run
+        for i, ((_, odiag), (_, tdiag)) in enumerate(zip(oracle_out, step_out)):
             assert bool(tdiag.bg_sufficient) == odiag["bg_sufficient"], i
             assert (
                 bool(tdiag.sure_bg_sufficient) == odiag["sure_bg_sufficient"]
@@ -212,9 +212,9 @@ class TestExactModeParity:
             # n_bg counts live on EMA float knife-edges; allow a whisker
             assert abs(int(tdiag.n_bg_voxels) - odiag["n_bg_voxels"]) <= 2, i
 
-    def test_grid_divergence_bounded(self, oracle_run, tpu_run):
+    def test_grid_divergence_bounded(self, oracle_run, step_run):
         _, ref = oracle_run
-        _, state = tpu_run
+        _, state = step_run
         g = np.asarray(state.grid)
         both_inf = np.isinf(g) & np.isinf(ref.vmap)  # apriori rows
         assert np.array_equal(np.isinf(g), np.isinf(ref.vmap))
@@ -233,7 +233,7 @@ class TestSweepModeErrorBudget:
     @pytest.fixture(scope="class")
     def sweep_run(self, scenario):
         cfg, lut, scans = scenario
-        return run_tpu(cfg, lut, scans, raycast_mode="sweep")
+        return run_step(cfg, lut, scans, raycast_mode="sweep")
 
     def test_error_budget(self, oracle_run, sweep_run):
         oracle_out, _ = oracle_run

@@ -34,7 +34,7 @@ from tests.test_pipeline_parity import (
     make_scenario,
     parity_config,
     parity_dyn,
-    run_tpu,
+    run_step,
 )
 from vofod_tpu.config import Box
 from vofod_tpu.parallel.grid_step import (
@@ -62,8 +62,8 @@ def border_runs():
     ref.vmap[1, :, :] = np.inf  # apriori ground row (ref :339-341)
     oracle_out = [ref.step(r, inten, p) for r, inten, p in scans]
 
-    tpu_out, tpu_state = run_tpu(cfg, lut, scans, raycast_mode="exact")
-    return cfg, lut, scans, oracle_out, tpu_out, tpu_state
+    step_out, step_state = run_step(cfg, lut, scans, raycast_mode="exact")
+    return cfg, lut, scans, oracle_out, step_out, step_state
 
 
 class TestBorderClusterParity:
@@ -89,9 +89,9 @@ class TestBorderClusterParity:
         )
 
     def test_detections_match(self, border_runs):
-        _, _, _, oracle_out, tpu_out, _ = border_runs
+        _, _, _, oracle_out, step_out, _ = border_runs
         for i, ((odets, _), (tdets, _)) in enumerate(
-            zip(oracle_out, tpu_out)
+            zip(oracle_out, step_out)
         ):
             assert len(tdets) == len(odets), (
                 f"scan {i}: {len(tdets)} detections vs oracle {len(odets)}"
@@ -126,7 +126,7 @@ class TestBorderClusterParity:
         ZShardOps.submaps3's padded dynamic_slice with a window crossing
         the GLOBAL z edge on the last shard, which no interior scenario
         reaches."""
-        cfg, lut, scans, _, tpu_out, tpu_state = border_runs
+        cfg, lut, scans, _, step_out, step_state = border_runs
         mesh = make_grid_mesh(4)
         dyn = parity_dyn()
         sh_step = make_grid_sharded_step(cfg, lut, mesh, raycast_mode="exact")
@@ -151,7 +151,7 @@ class TestBorderClusterParity:
                 for k in range(cfg.max_clusters)
                 if bool(out.detections.valid[k])
             ]
-            ddets, _ = tpu_out[i]
+            ddets, _ = step_out[i]
             assert len(sdets) == len(ddets), (
                 f"scan {i}: sharded {len(sdets)} detections vs dense "
                 f"{len(ddets)}"
@@ -171,6 +171,6 @@ class TestBorderClusterParity:
                     err_msg=f"scan {i}: sharded clamped confidence",
                 )
         np.testing.assert_array_equal(
-            np.asarray(state.grid), np.asarray(tpu_state.grid),
+            np.asarray(state.grid), np.asarray(step_state.grid),
             err_msg="final grid diverged between sharded and dense",
         )

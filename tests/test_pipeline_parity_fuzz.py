@@ -1,5 +1,5 @@
 """Randomized whole-pipeline parity fuzz: seeded random scenarios through the
-NumPy reference oracle AND the TPU step in reference-exact modes.
+NumPy reference oracle AND the JAX step in reference-exact modes.
 
 The four hand-built parity scenarios (test_pipeline_parity*.py) pin specific
 behaviors (gates, rangefinder, multi-object); this fuzz drives the SAME
@@ -31,7 +31,7 @@ differently and the OBB center legitimately shifts sub-voxel (PCL's float
 eigensolver is a third equally-valid answer; DESIGN.md §9 rates the OBB row
 "equiv", not "exact").  Membership parity is still pinned exactly through
 n_points/ids and the member-sensitive confidence (rtol 2e-3), and the
-position must satisfy: |Δ| <= 1e-3, OR (|Δ| <= one voxel AND the TPU
+position must satisfy: |Δ| <= 1e-3, OR (|Δ| <= one voxel AND the JAX
 position lies inside the oracle's member AABB inflated by half a voxel).
 """
 
@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 
 from tests.ref_pipeline import RefPipeline
-from tests.test_pipeline_parity import parity_config, run_tpu
+from tests.test_pipeline_parity import parity_config, run_step
 from tests.test_pipeline_parity_rangefinder import rangefinder_plan
 from vofod_tpu.config import DynParams
 from vofod_tpu.io.scan_source import Scene, hover_pose, render_scan
@@ -225,7 +225,7 @@ def run_oracle(cfg, lut, dyn, scans, m, mask):
 
 
 def run_node_exact(cfg, lut, dyn, scans, m, mask, tmp_path):
-    """The TPU side via the real VoFOD node (exact raycast), so rangefinder
+    """The JAX side via the real VoFOD node (exact raycast), so rangefinder
     fusion and live pause tuning run through the production entry points."""
     mask_path = ""
     if mask is not None:
@@ -284,8 +284,8 @@ def get_oracle(seed, cache):
     return cache[seed]
 
 
-def assert_detections_match(seed, cfg, oracle_out, tpu_out):
-    for i, ((odets, _), tdets) in enumerate(zip(oracle_out, tpu_out)):
+def assert_detections_match(seed, cfg, oracle_out, step_out):
+    for i, ((odets, _), tdets) in enumerate(zip(oracle_out, step_out)):
         assert len(tdets) == len(odets), (
             f"seed {seed} scan {i}: {len(tdets)} detections vs "
             f"oracle {len(odets)}"
@@ -318,7 +318,7 @@ def assert_detections_match(seed, cfg, oracle_out, tpu_out):
 def test_randomized_scenario_parity(seed, oracle_cache, tmp_path):
     cfg, lut, dyn, scans, m, mask = fuzz_scenario(seed)
     oracle_out, ref, o_rf = get_oracle(seed, oracle_cache)
-    tpu_out, node, t_rf = run_node_exact(
+    step_out, node, t_rf = run_node_exact(
         cfg, lut, dyn, scans, m, mask, tmp_path
     )
 
@@ -326,7 +326,7 @@ def test_randomized_scenario_parity(seed, oracle_cache, tmp_path):
     n_det_scans = sum(1 for d, _ in oracle_out if d)
     assert n_det_scans >= 5, f"seed {seed}: only {n_det_scans} detect scans"
 
-    assert_detections_match(seed, cfg, oracle_out, tpu_out)
+    assert_detections_match(seed, cfg, oracle_out, step_out)
 
     # rangefinder fuse/reject verdicts agree hit-for-hit (ref :580-613)
     assert o_rf == t_rf, f"seed {seed}: rangefinder verdicts diverge"
@@ -356,7 +356,7 @@ def test_randomized_sweep_error_budget(seed, oracle_cache):
         compat_rangefinder_validity=m["rf_quirk"],
     )  # production defaults (local-density sepclusters)
     oracle_out, _, _ = get_oracle(seed, oracle_cache)
-    sweep_out, _ = run_tpu(
+    sweep_out, _ = run_step(
         cfg_prod, lut, scans, "sweep", dyn=dyn, mask=mask,
         raycast_every=m["raycast_every"],
         dyn_schedule=lambda i, d: _pause_dyn(d, i, m),
@@ -399,7 +399,7 @@ def test_dynamic_radii_mid_sequence_change(oracle_cache):
     """cfg.dynamic_radii with a LIVE radius change mid-sequence: both stencil
     radii shrink/grow at scan 20 on both sides (the oracle recomputes its
     radii from DynParams per step — tests/ref_pipeline.py _ground_radius_idx;
-    the TPU pools gate taps by the traced r², ops/morphology).  dynamic_radii
+    the JAX pools gate taps by the traced r², ops/morphology).  dynamic_radii
     composes with the default local-density sepclusters only (step.py:177),
     so the contract is the sweep error budget, not bit-parity."""
     seed = 7
@@ -438,7 +438,7 @@ def test_dynamic_radii_mid_sequence_change(oracle_cache):
             ),
         )
 
-    sweep_out, _ = run_tpu(cfg, lut, scans, "sweep", dyn=dyn,
+    sweep_out, _ = run_step(cfg, lut, scans, "sweep", dyn=dyn,
                            dyn_schedule=sched)
     sweep_out = [dets for dets, _diag in sweep_out]
 

@@ -5,7 +5,7 @@ skip a pixel when ``intensity < raycast/min_intensity`` OR when it is masked
 AND returned nothing) and the skipped-scan schedule compensation
 (``its_diff``, ref :1540-1548) are covered at kernel level by
 tests/test_raycast.py; this module proves them through the WHOLE pipeline:
-the NumPy oracle and the TPU step in exact modes run a 52-scan scenario with
+the NumPy oracle and the JAX step in exact modes run a 52-scan scenario with
 
 * a FOV mask zeroing one pixel block (airframe-style permanent occlusion),
 * an intensity pattern putting one pixel block under the gate, and
@@ -23,7 +23,7 @@ from tests.ref_pipeline import RefPipeline
 from tests.test_pipeline_parity import (
     make_scenario,
     parity_config,
-    run_tpu,
+    run_step,
 )
 from vofod_tpu.config import DynParams
 from vofod_tpu.pipeline.state import ScanInput, init_state
@@ -72,7 +72,7 @@ def oracle_run(scenario):
 
 
 @pytest.fixture(scope="module")
-def tpu_run(scenario):
+def step_run(scenario):
     cfg, lut, scans, mask = scenario
     cfg_t = parity_config(
         sepclusters_exact_census=True, compat_hascloseto_bounds=True
@@ -137,11 +137,11 @@ def test_gates_engage(scenario, oracle_run):
     assert (diff > 1.0).sum() > 50, f"gates changed {(diff > 1.0).sum()} voxels"
 
 
-def test_detections_match(oracle_run, tpu_run):
+def test_detections_match(oracle_run, step_run):
     oracle_out, _ = oracle_run
-    tpu_out, _ = tpu_run
+    step_out, _ = step_run
     n_det_scans = 0
-    for i, ((odets, _), (tdets, _)) in enumerate(zip(oracle_out, tpu_out)):
+    for i, ((odets, _), (tdets, _)) in enumerate(zip(oracle_out, step_out)):
         assert len(tdets) == len(odets), (
             f"scan {i}: {len(tdets)} detections vs oracle {len(odets)}"
         )
@@ -162,9 +162,9 @@ def test_detections_match(oracle_run, tpu_run):
     assert n_det_scans >= 10, "target not tracked under the gated schedule"
 
 
-def test_grid_divergence_bounded(oracle_run, tpu_run):
+def test_grid_divergence_bounded(oracle_run, step_run):
     _, ref = oracle_run
-    _, state = tpu_run
+    _, state = step_run
     g = np.asarray(state.grid)
     assert np.array_equal(np.isinf(g), np.isinf(ref.vmap))
     both_inf = np.isinf(g) & np.isinf(ref.vmap)

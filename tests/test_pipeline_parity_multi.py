@@ -1,4 +1,4 @@
-"""Multi-object end-to-end parity: TPU exact modes vs the NumPy oracle.
+"""Multi-object end-to-end parity: JAX exact modes vs the NumPy oracle.
 
 Extends tests/test_pipeline_parity.py's single-target scenario with the
 multi-cluster cases the reference handles in one scan (processMsg clusters
@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 
 from tests.ref_pipeline import RefPipeline
-from tests.test_pipeline_parity import parity_config, parity_dyn, run_tpu
+from tests.test_pipeline_parity import parity_config, parity_dyn, run_step
 from vofod_tpu.io.scan_source import Scene, hover_pose, render_scan
 from vofod_tpu.sensor import make_lut
 
@@ -89,25 +89,25 @@ def oracle_run(scenario):
 
 
 @pytest.fixture(scope="module")
-def tpu_run(scenario):
+def step_run(scenario):
     cfg, lut, scans = scenario
     cfg_t = parity_config(
         sepclusters_exact_census=True, compat_hascloseto_bounds=True
     )
-    return run_tpu(cfg_t, lut, scans, raycast_mode="exact")
+    return run_step(cfg_t, lut, scans, raycast_mode="exact")
 
 
-def test_detections_match(oracle_run, tpu_run):
+def test_detections_match(oracle_run, step_run):
     oracle_out, _ = oracle_run
-    tpu_out, _ = tpu_run
-    for i, ((odets, _), (tdets, _)) in enumerate(zip(oracle_out, tpu_out)):
+    step_out, _ = step_run
+    for i, ((odets, _), (tdets, _)) in enumerate(zip(oracle_out, step_out)):
         assert len(tdets) == len(odets), (
             f"scan {i}: {len(tdets)} detections vs oracle {len(odets)}"
         )
         # ids are minted from the same monotonic counter in both, but the
         # WITHIN-scan assignment order is implementation-defined when two
         # detections first appear in one scan (the reference's order follows
-        # PCL's extraction order, itself input-order-dependent; the TPU slots
+        # PCL's extraction order, itself input-order-dependent; the JAX slots
         # order by label) — so ids must match as a per-scan set, while
         # per-detection fields pair by position.
         assert sorted(d["id"] for d in tdets) == sorted(
@@ -127,10 +127,10 @@ def test_detections_match(oracle_run, tpu_run):
             )
 
 
-def test_two_targets_detected_simultaneously(oracle_run, tpu_run):
+def test_two_targets_detected_simultaneously(oracle_run, step_run):
     """Some scans must carry BOTH flying targets at once, in both
     implementations, with positions near the true sphere centers."""
-    for out, name in ((oracle_run[0], "oracle"), (tpu_run[0], "tpu")):
+    for out, name in ((oracle_run[0], "oracle"), (step_run[0], "step")):
         multi = 0
         for i, (dets, _) in enumerate(out):
             if len(dets) < 2:
@@ -145,12 +145,12 @@ def test_two_targets_detected_simultaneously(oracle_run, tpu_run):
         assert multi >= 5, f"{name}: only {multi} dual-detection scans"
 
 
-def test_distinct_monotonic_ids(tpu_run):
+def test_distinct_monotonic_ids(step_run):
     """Per-scan ids are distinct; ids never decrease across the run and a
     fresh id is only ever minted one past the counter (ref :845)."""
-    tpu_out, _ = tpu_run
+    step_out, _ = step_run
     all_ids = []
-    for dets, _ in tpu_out:
+    for dets, _ in step_out:
         ids = [d["id"] for d in dets]
         assert len(ids) == len(set(ids)), f"duplicate ids in one scan: {ids}"
         all_ids.extend(sorted(ids))
@@ -160,11 +160,11 @@ def test_distinct_monotonic_ids(tpu_run):
     assert distinct == list(range(len(distinct))), distinct
 
 
-def test_resting_object_never_detected(oracle_run, tpu_run):
+def test_resting_object_never_detected(oracle_run, step_run):
     """The sphere resting on the structure is a close cluster: no detection
     may ever appear near it in either implementation."""
     c = np.array(C_CENTER)
-    for out, name in ((oracle_run[0], "oracle"), (tpu_run[0], "tpu")):
+    for out, name in ((oracle_run[0], "oracle"), (step_run[0], "step")):
         for i, (dets, _) in enumerate(out):
             for d in dets:
                 dist = float(np.linalg.norm(d["position"] - c))
@@ -183,7 +183,7 @@ class TestSweepModeMulti:
     @pytest.fixture(scope="class")
     def sweep_run(self, scenario):
         cfg, lut, scans = scenario
-        return run_tpu(cfg, lut, scans, raycast_mode="sweep")
+        return run_step(cfg, lut, scans, raycast_mode="sweep")
 
     def test_both_targets_tracked(self, sweep_run):
         multi = 0

@@ -76,16 +76,16 @@ def runs(scenario):
     )
     node._apriori_loaded = True
 
-    oracle_out, tpu_out, verdicts = [], [], []
+    oracle_out, step_out, verdicts = [], [], []
     for i, (ranges, inten, pose) in enumerate(scans):
         oracle_out.append(ref.step(ranges, inten, pose))
         msg = node.process_scan(ranges, inten, pose)
-        tpu_out.append(msg.detections)
+        step_out.append(msg.detections)
         rng, lo, hi, rf_pose = rangefinder_plan(i, pose)
         o_ok = ref.rangefinder(rng, lo, hi, rf_pose)
         t_ok = node.process_rangefinder(rng, lo, hi, rf_pose)
         verdicts.append((i, o_ok, t_ok))
-    return oracle_out, tpu_out, verdicts, ref, node
+    return oracle_out, step_out, verdicts, ref, node
 
 
 def test_fusion_verdicts_match(runs):
@@ -97,8 +97,8 @@ def test_fusion_verdicts_match(runs):
 
 
 def test_detections_match(runs):
-    oracle_out, tpu_out, _, _, _ = runs
-    for i, ((odets, _), tdets) in enumerate(zip(oracle_out, tpu_out)):
+    oracle_out, step_out, _, _, _ = runs
+    for i, ((odets, _), tdets) in enumerate(zip(oracle_out, step_out)):
         assert len(tdets) == len(odets), (
             f"scan {i}: {len(tdets)} detections vs oracle {len(odets)}"
         )

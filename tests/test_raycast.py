@@ -13,7 +13,7 @@ from vofod_tpu.ops.raycast import (
 )
 from vofod_tpu.sensor import make_lut_simulation
 
-from oracles import dda_raylen_np
+from oracles import dda_raylen_np, gate_faces_np
 
 
 class TestDDA:
@@ -327,51 +327,6 @@ class TestAngularGateCalibratedLut:
         az = 3.0 * np.sin(np.linspace(0, 2 * np.pi, H))  # staggered columns
         return make_lut_ouster(W, H, az, alt, 15.806)
 
-    @staticmethod
-    def _oracle_faces(gate, lut, active, R):
-        """Independent per-texel ground truth: pool the active image, invert
-        the TRUE per-row elevation table per texel (searchsorted + linear
-        extrapolation with the end-segment slope), tent-sample."""
-        H, W = lut.height, lut.width
-        G = np.asarray(active, np.float64).reshape(
-            gate.n_rows, gate.pool_v, gate.n_cols, gate.pool_h
-        ).mean(axis=(1, 3))
-        el_row = np.arcsin(
-            np.clip(lut.directions.reshape(H, W, 3)[..., 2], -1, 1)
-        ).mean(axis=1)
-
-        d_s = gate.face_dirs.reshape(-1, 3).astype(np.float64) @ np.asarray(R)
-        el = np.arcsin(np.clip(d_s[:, 2], -1, 1))
-        az = np.arctan2(d_s[:, 1], d_s[:, 0])
-
-        # invert el_row (monotone decreasing for top-down tables)
-        sgn = 1.0 if el_row[-1] > el_row[0] else -1.0
-        f = sgn * el_row
-        t = sgn * el
-        seg = np.clip(np.searchsorted(f, t, side="right") - 1, 0, H - 2)
-        row_f = seg + (t - f[seg]) / (f[seg + 1] - f[seg])
-        g_r = (row_f + 0.5) / gate.pool_v - 0.5
-        g_c = np.mod(
-            ((az - gate.az_b) / gate.az_a + 0.5) / gate.pool_h - 0.5,
-            gate.col_period,
-        )
-        kr = np.arange(gate.n_rows)
-        kc = np.arange(gate.n_cols)
-        w_r = np.maximum(0.0, 1.0 - np.abs(g_r[:, None] - kr[None, :]))
-        d0 = np.abs(g_c[:, None] - kc[None, :])
-        dwrap = np.minimum(
-            d0,
-            np.minimum(
-                np.abs(g_c[:, None] - gate.col_period - kc[None, :]),
-                np.abs(g_c[:, None] + gate.col_period - kc[None, :]),
-            ),
-        )
-        w_c = np.maximum(0.0, 1.0 - dwrap)
-        w_c = w_c / np.maximum(w_c.sum(axis=-1, keepdims=True), 1e-6)
-        vals = np.sum(w_r * (w_c @ G.T), axis=-1)
-        F = gate.face_dirs.shape[1]
-        return vals.reshape(6, F, F)
-
     def test_linear_fit_fails_table_is_stored(self):
         """The motivating measurement: the linear row fit misplaces gradient
         beams by >1 pooled bin, so make_angular_gate must store the table."""
@@ -410,7 +365,7 @@ class TestAngularGateCalibratedLut:
             got = np.asarray(
                 gate_faces(gate, jnp.asarray(active), jnp.asarray(R, jnp.float32))
             )
-            want = self._oracle_faces(gate, lut, active, R)
+            want = gate_faces_np(gate, lut, active, R)
             np.testing.assert_allclose(got, want, atol=3e-3, err_msg=f"trial {trial}")
 
     def test_row_centers_exact(self):

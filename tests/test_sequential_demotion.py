@@ -3,7 +3,7 @@
 
 The reference explores a cluster's members ONE AT A TIME and demotes a failed
 member's explored frontier immediately, visible to every later query in the
-same scan (vofod_nodelet.cpp:1692-1718, voxel_map.cpp:402-488).  The TPU
+same scan (vofod_nodelet.cpp:1692-1718, voxel_map.cpp:402-488).  The
 production step evaluates all queries independently in one batched BFS
 (DESIGN.md §4).  This file:
 
@@ -34,7 +34,7 @@ query connects by popping a traversable cell at manhattan distance exactly
 A's failed explore reaches every carved cell (max manh_A = 5 < 7, fully
 walled) and demotes them all — including B's start and corridor — so the
 oracle's B explores nothing and fails: cluster floating (mav).  The
-independent TPU explore lets B see the pre-demotion grid and connect:
+independent batched explore lets B see the pre-demotion grid and connect:
 cluster grounded (unknown).  One coupled demotion, one flipped verdict.
 """
 
@@ -122,7 +122,7 @@ def oracle_classify(cfg, dyn, vals, members, sensor_pos):
     return dets, clusters, ref.vmap
 
 
-def tpu_classify(cfg, dyn, vals, far, labels, sensor_pos):
+def step_classify(cfg, dyn, vals, far, labels, sensor_pos):
     g = GridSpec.from_config(cfg)
     out = classify(
         cfg,
@@ -181,7 +181,7 @@ class TestAdversarialScene:
         measured rather than asserted by argument."""
         cfg, dyn = scene_config(), scene_dyn()
         vals, far, labels, members, sensor_pos = build_scene(cfg, dyn)
-        cls, grid_after = tpu_classify(cfg, dyn, vals, far, labels, sensor_pos)
+        cls, grid_after = step_classify(cfg, dyn, vals, far, labels, sensor_pos)
         assert cls == CLS_UNKNOWN  # B connected independently -> grounded
         # and the non-floating cluster demotes nothing in production mode
         np.testing.assert_array_equal(grid_after, vals)
@@ -195,7 +195,7 @@ class TestAdversarialScene:
         _, clusters, vmap_oracle = oracle_classify(
             cfg, dyn, vals, members, sensor_pos
         )
-        cls, grid_after = tpu_classify(cfg, dyn, vals, far, labels, sensor_pos)
+        cls, grid_after = step_classify(cfg, dyn, vals, far, labels, sensor_pos)
         assert cls == CLS_MAV
         assert [c["cclass"] for c in clusters] == ["mav"]
         np.testing.assert_array_equal(grid_after, vmap_oracle)
@@ -212,7 +212,7 @@ class TestSequentialWholePipeline:
             make_scenario,
             parity_config,
             parity_dyn,
-            run_tpu,
+            run_step,
         )
 
         cfg = parity_config(
@@ -224,12 +224,12 @@ class TestSequentialWholePipeline:
         ref = RefPipeline(cfg, parity_dyn(), lut)
         ref.vmap[1, :, :] = np.inf
         oracle_out = [ref.step(r, i, p) for r, i, p in scans]
-        tpu_out, state = run_tpu(cfg, lut, scans, "exact")
+        step_out, state = run_step(cfg, lut, scans, "exact")
 
         n_det = sum(1 for d, _ in oracle_out if d)
         assert n_det >= 10
         for i, ((odets, _), (tdets, _)) in enumerate(
-            zip(oracle_out, tpu_out)
+            zip(oracle_out, step_out)
         ):
             assert len(tdets) == len(odets), f"scan {i}"
             osort = sorted(odets, key=lambda d: tuple(d["position"]))

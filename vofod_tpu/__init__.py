@@ -1,4 +1,4 @@
-"""vofod_tpu — TPU-native volumetric flying-object detection framework.
+"""vofod_tpu — volumetric flying-object detection framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of ctu-mrs/vofod
 (LiDAR-based detection of flying objects via a probabilistic
@@ -6,7 +6,8 @@ occupancy-confidence voxel map; see /root/reference, README.md:3-5).
 
 The reference is a mutable-object C++ ROS nodelet; this framework is a single
 pure function ``step(state, scan, pose) -> (state, detections)`` jitted
-end-to-end on TPU, with the voxel grids as donated device-resident state.
+end-to-end on one accelerator, with the voxel grids as donated
+device-resident state.
 """
 
 from vofod_tpu.config import VoFODConfig, DynParams, load_config

@@ -6,9 +6,9 @@ DetectionParams.cfg live-tunable params read every scan):
 
 * :class:`VoFODConfig` — frozen, hashable static configuration.  Anything that
   affects array *shapes* or compiled control flow lives here; changing it
-  recompiles the step function (the TPU analogue of restarting the nodelet).
+  recompiles the step function (the analogue of restarting the nodelet).
 * :class:`DynParams` — a JAX pytree of scalars traced into the jitted step, so
-  scores/thresholds can change *per step* without recompilation (the TPU
+  scores/thresholds can change *per step* without recompilation (the
   analogue of dynamic_reconfigure).
 """
 
@@ -124,7 +124,7 @@ class VoFODConfig:
     ground_points_max_distance_bound: float = 0.0
     sepclusters_max_bg_distance_bound: float = 0.0
 
-    # --- static capacities of the fixed-shape TPU pipeline -----------------
+    # --- static capacities of the fixed-shape pipeline ---------------------
     # max far (non-background) clusters tracked per scan; slots fill in
     # ascending component-label order, so keep generous headroom — sparse
     # distant ground legitimately forms several large ring clusters that
@@ -179,8 +179,8 @@ class VoFODConfig:
     # member's explored frontier immediately, visible to every later query
     # in the same scan (and demotions persist even when a later member
     # connects).  The default (False) evaluates all queries independently in
-    # one batched BFS and demotes only fully-floating clusters — far faster
-    # on TPU, equivalent except when a failed member's demotions flip a
+    # one batched BFS and demotes only fully-floating clusters — far faster,
+    # equivalent except when a failed member's demotions flip a
     # later query's verdict (tests/test_sequential_demotion.py constructs
     # that divergence; DESIGN.md §9).  True runs a lax.scan over queries in
     # the reference's (cluster, member) order — the bit-parity instrument.
@@ -204,7 +204,7 @@ class VoFODConfig:
     # ------------------------------------------------------------------------
     @property
     def grid_shape(self) -> tuple[int, int, int]:
-        """(nz, ny, nx) — X is the fastest (lane) dimension on TPU.
+        """(nz, ny, nx) — X is the fastest-varying (minor) dimension.
 
         Sizing matches the reference VoxelMap::resize
         (src/voxel_map.cpp:11-19): ``ceil(dim / voxel) + 1`` per axis.
@@ -457,21 +457,14 @@ jtu.register_pytree_node(DynParams, _dyn_flatten, _dyn_unflatten)
 
 
 def read_reference_yaml(path: str | None):
-    """Parse a reference-format YAML file (supports the ``!degrees`` tag used
-    by config/sensors/*.yaml).  Returns None when path is None."""
+    """Parse a reference-format YAML file (the subset of io/yaml_lite.py,
+    including the ``!degrees`` tag used by config/sensors/*.yaml).  Returns
+    None when path is None."""
     if path is None:
         return None
-    import yaml
+    from vofod_tpu.io.yaml_lite import load_file
 
-    def _degrees_ctor(loader, node):
-        return float(loader.construct_scalar(node))
-
-    class _Loader(yaml.SafeLoader):
-        pass
-
-    _Loader.add_constructor("!degrees", _degrees_ctor)
-    with open(path) as f:
-        return yaml.load(f, Loader=_Loader)
+    return load_file(path)
 
 
 def load_config(

@@ -1,11 +1,10 @@
 """Grid geometry core: coordinate <-> index math, limits, SE(3) helpers.
 
-TPU-native equivalent of the reference VoxelMap's coordinate layer
+Equivalent of the reference VoxelMap's coordinate layer
 (src/voxel_map.cpp:592-619 coordToIdx/idxToCoord, :288-303 inLimits).
 
-Grid arrays are stored as ``(nz, ny, nx)`` with X as the fastest (lane)
-dimension: (51, 201, 241) pads to (51, 208, 256) on TPU (≈10% overhead),
-whereas an ``(nx, ny, nz)`` layout would pad Z from 51 to 128 lanes (≈2.6x).
+Grid arrays are stored as ``(nz, ny, nx)`` with X as the fastest-varying
+(minor) dimension, the longest axis of every supported operation area.
 
 Flat voxel ids are ``(z * ny + y) * nx + x`` and are used as cluster labels by
 the connected-components kernel.
@@ -17,6 +16,7 @@ from dataclasses import dataclass
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 Array = jnp.ndarray
 
@@ -143,17 +143,20 @@ def se3_from_rt(rotation: Array, translation: Array) -> Array:
 def se3_apply(T: Array, pts: Array) -> Array:
     """Apply a 4x4 transform to points [..., 3].
 
-    Implemented as one fused matmul over the point batch so XLA maps it onto
-    the MXU (the reference does per-point Eigen transforms,
-    vofod_nodelet.cpp:640).
+    One matmul over the point batch (the reference does per-point Eigen
+    transforms, vofod_nodelet.cpp:640).  Full f32 precision: the result is
+    binned at voxel resolution and must agree with the host binner, and a
+    default-precision f32 matmul may run in TF32 (~10 mantissa bits) on a
+    GPU, which moves points across voxel boundaries tens of metres out.
     """
     R = T[:3, :3]
     t = T[:3, 3]
-    return pts @ R.T + t
+    return jnp.matmul(pts, R.T, precision=lax.Precision.HIGHEST) + t
 
 
 def se3_rotate(T: Array, vecs: Array) -> Array:
-    return vecs @ T[:3, :3].T
+    """Rotate vectors [..., 3] by T's rotation (full f32, see se3_apply)."""
+    return jnp.matmul(vecs, T[:3, :3].T, precision=lax.Precision.HIGHEST)
 
 
 def yaw_rotation(yaw_rad: float) -> np.ndarray:

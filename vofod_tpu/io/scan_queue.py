@@ -3,7 +3,7 @@
 The reference's data path is the nodelet subscriber queue drained by
 pointcloud_loop worker threads (vofod_nodelet.cpp:1113-1122); here a native
 lock-free ring decouples a producer thread (sensor driver / bag reader) from
-the TPU feeder, with drop counting when the consumer falls behind (the same
+the device feeder, with drop counting when the consumer falls behind (the same
 back-pressure semantics as a depth-limited ROS subscriber).  Falls back to a
 pure-Python deque when the native library is absent.
 """

@@ -4,7 +4,8 @@ The reference's acceptance test is a Gazebo two-UAV scene (tmux/simulation/,
 SURVEY.md §4); this module provides the equivalent fake sensor backend: an
 ideal-spherical-LUT scanner (ref initialize_sensor_lut_simulation,
 vofod_nodelet.cpp:374-420) ray-traced against an analytic scene of a ground
-plane, boxes and spheres — used by tests, the demo, and the benchmark.
+plane, boxes and spheres — used by tests, the demo, the benchmark and the
+on-card smoke run.
 """
 
 from __future__ import annotations
@@ -93,6 +94,45 @@ def hover_pose(xyz, yaw: float = 0.0) -> np.ndarray:
     T[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
     T[:3, 3] = np.asarray(xyz, np.float32)
     return T
+
+
+def orbit_target_center(k: int, n_scans: int) -> np.ndarray:
+    """Center of the orbiting target in scan ``k`` of :func:`make_scan_cycle`."""
+    a = 2.0 * np.pi * k / n_scans
+    return np.array([25.0 + 4.0 * np.cos(a), 15.0 + 4.0 * np.sin(a), 6.0])
+
+
+def make_scan_cycle(lut: XyzLut, n_scans: int) -> list:
+    """Content-varying scan cycle over the flagship operation area: ground,
+    a static structure and a target (sphere, radius 0.5 m) ORBITING while
+    the sensor flies its own arc — every scan in the cycle differs in
+    content and pose.  Returns [(ranges_mm, pose)]."""
+    scans = []
+    for k in range(n_scans):
+        a = 2.0 * np.pi * k / n_scans
+        scene = Scene(ground_z=-1.0)
+        scene.add_box((50.0, 30.0, -1.0), (54.0, 34.0, 5.0))
+        scene.add_sphere(center=orbit_target_center(k, n_scans), radius=0.5)
+        p = hover_pose(
+            (40.0 + 1.5 * np.cos(a), 20.0 + 1.5 * np.sin(a),
+             3.0 + 0.2 * np.sin(2 * a)),
+            yaw=0.1 * np.sin(a),
+        )
+        scans.append((render_scan(scene, lut, p), p))
+    return scans
+
+
+def apriori_ground() -> np.ndarray:
+    """Apriori ground plane under :func:`make_scan_cycle`'s scene, [M, 3]
+    world points.  Deployments bootstrap the background from an apriori map
+    of the operation area (ref config/apriori_maps/sim.yaml); without it the
+    detector idles in its cold-start state."""
+    xs = np.arange(10.0, 60.0, 0.4)
+    ys = np.arange(0.0, 45.0, 0.4)
+    gx, gy = np.meshgrid(xs, ys)
+    return np.stack(
+        [gx.ravel(), gy.ravel(), np.full(gx.size, -1.0)], axis=1
+    ).astype(np.float32)
 
 
 def save_scans_npz(

@@ -1,12 +1,11 @@
-"""TPU-native compute kernels for the VoFOD pipeline.
+"""Compute kernels for the VoFOD pipeline, in plain jax.numpy/lax.
 
-Design note (measured on TPU v5e, see DESIGN.md): random-access gather and
-scatter run at ~8 ns/element (effectively serialized), while dense stencil,
-elementwise and reduction passes over the full 2.5M-voxel grid cost well under
-a millisecond.  Every hot-path op here is therefore formulated as dense
-stencil/elementwise work plus *small* (≤ a few hundred element) compacted index
-lists; the only full-size scatter kept is the 131k-point voxel binning
-histogram.
+Design rule (DESIGN.md §1): every hot-path op is formulated as dense
+stencil/elementwise work over the full grid plus *small* (≤ a few hundred
+element) compacted index lists, avoiding large random-access gathers and
+scatters; the only full-size scatter kept is the 131k-point voxel binning
+histogram.  The rule predates any GPU measurement; its costs are to be
+re-measured on the GPU (ROADMAP.md §3.4).
 """
 
 from vofod_tpu.ops.morphology import (

@@ -9,7 +9,7 @@ dense count grid.  The grid-alignment machinery of the reference
 
 VoxelGridCounted (src/voxel_grid_counted.cpp:176-195) is the same histogram
 with a second thresholded-value channel; it is only needed by the separated-
-background maintenance, which in the TPU design works directly on dense masks
+background maintenance, which in this design works directly on dense masks
 (see pipeline/sepclusters.py), so only the generic helper lives here.
 """
 
@@ -64,7 +64,7 @@ def bin_points(
         w = inb.astype(jnp.int32)
     else:
         w = jnp.where(inb, weights, 0).astype(jnp.int32)
-    # single flat scatter-add; ~1 ms for 131k points on v5e
+    # single flat scatter-add over the 131k points
     counts = jnp.zeros((grid.n_voxels,), jnp.int32).at[fid].add(
         w, mode="drop", indices_are_sorted=False
     )

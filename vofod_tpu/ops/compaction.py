@@ -1,24 +1,22 @@
 """Fixed-capacity stream compaction without large scatters or sorts.
 
 ``masked_compact(mask, capacity)`` returns the flat indices of the first
-``capacity`` set elements of a boolean grid.  This is the TPU-native
+``capacity`` set elements of a boolean grid.  This is the dense
 replacement for the reference's dynamic containers (PCL index vectors,
 std::vector<PointIndices>) and is the bridge from dense grids to the small
 per-cluster computations of the classification stage.
 
-Why not top_k / sort / scatter?  Measured on v5e: ``lax.top_k`` over 2.5M is
-~24 ms and large scatters serialize at ~8 ns/update.  Instead we do:
+It avoids ``top_k``, sorts, large scatters and full-array prefix sums (the
+no-large-gather/scatter rule of DESIGN.md §1, chosen before GPU measurements
+existed; ROADMAP.md §3.4 re-measures it).  Instead:
 
 1. dense per-block totals (one fast reduce) + an exclusive scan over ~2.5k
    block totals (tiny),
 2. per output slot, a dense rank over block starts ([capacity, nblocks]
-   compare+sum — pure VPU) and a contiguous row-gather of the chosen blocks,
+   compare+sum) and a contiguous row-gather of the chosen blocks,
 3. in-block running counts for JUST the gathered rows via one triangular
-   matmul on the MXU ([capacity, B] @ [B, B] — 0/1 rows, so f32 counts are
-   exact), then a dense rank for the in-block position.  This replaces a
-   full-array ``cumsum`` (~1.2 ms over 2.5M on v5e — prefix sums lower
-   badly) with ~0.05 ms of MXU work.  Scalar-gather binary searches measured
-   ~10x slower still.
+   matmul ([capacity, B] @ [B, B] — 0/1 rows, so f32 counts are exact),
+   then a dense rank for the in-block position.
 
 Everything is O(N + capacity*(nblocks+blocksize)) dense work plus one
 row-gather of ``capacity`` contiguous 1k slices and one small matmul.
@@ -74,9 +72,8 @@ def masked_compact(mask: Array, capacity: int) -> tuple[Array, Array, Array]:
     q = jnp.arange(capacity, dtype=jnp.int32)
 
     # block containing the q-th set element: last block with bstart <= q.
-    # Dense vectorized rank instead of a binary search: [capacity, nb]
-    # compare + row-sum is pure VPU work (scalar-gather search loops measure
-    # ~10x slower on v5e).
+    # Dense vectorized rank instead of a scalar-gather binary search:
+    # [capacity, nb] compare + row-sum.
     blk = (
         jnp.sum(bstart[None, :] <= q[:, None], axis=1).astype(jnp.int32) - 1
     )
@@ -85,10 +82,10 @@ def masked_compact(mask: Array, capacity: int) -> tuple[Array, Array, Array]:
 
     # position inside the block: first column with running count > rank.
     # Row-gather the needed 0/1 blocks (contiguous 1024-slices), build their
-    # inclusive running counts with one triangular MXU matmul (exact in f32
-    # — counts <= 1024 << 2^24), dense-rank the position.
-    # default MXU precision is exact here: 0/1 operands are exact in bf16
-    # and the f32 accumulator holds counts <= 1024 exactly
+    # inclusive running counts with one triangular matmul, dense-rank the
+    # position.  Default precision is exact here: 0/1 operands are exact in
+    # bf16 and TF32 alike, and the f32 accumulator holds counts <= 1024
+    # exactly.
     rows = blocks[blk].astype(jnp.float32)  # [capacity, _BLOCK]
     run_rows = jax.lax.dot(rows, jnp.asarray(_tri_np()))  # [capacity, _BLOCK]
     pos = jnp.sum(

@@ -1,6 +1,6 @@
 """Euclidean-tolerance connected components and reachability on voxel masks.
 
-TPU-native replacement for PCL EuclideanClusterExtraction (ref
+Dense replacement for PCL EuclideanClusterExtraction (ref
 vofod_nodelet.cpp:689-698) and the close/far cluster split (ref
 findCloseFarClusters :701-751).
 
@@ -24,8 +24,8 @@ sets under this adjacency.
   plain propagation converges in a few sweeps; the while_loop carries a
   convergence flag surfaced in the step diagnostics.
 
-Pointer-jumping is deliberately NOT used: it needs full-grid gathers, which
-measure ~19 ms on v5e — far slower than a handful of extra stencil sweeps.
+Pointer-jumping is deliberately NOT used: it needs full-grid gathers (the
+no-large-gather rule of DESIGN.md §1, to be re-measured on the GPU).
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def propagate_reach(
 
     def body(state):
         cur, _, it = state
-        # int8: the mask is binary and the pool is HBM-bandwidth-bound
+        # int8: the mask is binary and the pool is memory-bandwidth-bound
         c8 = cur.astype(jnp.int8)
         if traced_r2 is not None:
             pooled = ball_pool_max_traced(c8, traced_r2, radius, fill=0)

@@ -1,9 +1,8 @@
 """Closed-form symmetric 3x3 eigendecomposition (batched, branch-free).
 
 Replaces ``jnp.linalg.eigh`` for the per-cluster PCA OBB (classify) — the
-general eigensolver lowers to an iterative QDWH/Jacobi custom call on TPU
-with data-independent but large cost; the closed form is ~100 flops per
-matrix and fully vectorized.
+general eigensolver lowers to an iterative solver call per batch; the closed
+form is ~100 flops per matrix and fully vectorized.
 
 Method: eigenvalues via the trigonometric solution of the characteristic
 cubic (Smith's algorithm); eigenvectors via cross products of (A - λI) rows,

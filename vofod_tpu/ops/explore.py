@@ -8,7 +8,7 @@ connected to ground (ref src/voxel_map.cpp:402-488, call site
 src/vofod_nodelet.cpp:1692-1718).  Unknown voxels explored by a failed
 (floating) search are demoted to the frontiers score (:1709-1716).
 
-TPU formulation: each query extracts a fixed SxSxS submap around its voxel
+Dense formulation: each query extracts a fixed SxSxS submap around its voxel
 (one dynamic_slice from a halo-padded grid) and runs a batched masked BFS —
 iterated 6-neighbor dilation through the unknown band inside the Manhattan
 ball — under one lax.while_loop for the whole query batch.  Reachability,
@@ -93,11 +93,10 @@ def explore_to_ground(
             (S, S, S),
         )
 
-    # [Q, S, S*S] layout for the BFS: the (y, x) plane flattens into the
-    # lane dimension (S² = full 128-lane multiples), where the natural
-    # [.., S, S] tail would pad S=32 lanes 4× to 128 — the BFS sweeps are
-    # pure memory traffic, so the flat layout is ~4× cheaper.  x-shifts
-    # crossing a row boundary are masked out (precomputed lane masks).
+    # [Q, S, S*S] layout for the BFS: the (y, x) plane flattens into one
+    # minor dimension (a layout choice that predates GPU measurements;
+    # re-measure, ROADMAP.md §3.4).  x-shifts crossing a
+    # row boundary are masked out (precomputed row masks).
     vals = jax.vmap(extract)(qx, qy, qz).reshape(-1, S, S * S)
 
     # Manhattan distance from the center voxel

@@ -13,8 +13,7 @@ fused grid passes:
 
 The Euclidean ball of radius r is decomposed into x-direction running pools
 (widths shared across rows) followed by one shifted combine per (dz, dy) row —
-~35 fused passes for r=3 instead of 123 naive taps (measured ~5x faster than
-the naive form on v5e; a single-pass Pallas stencil kernel is the next step).
+~35 fused passes for r=3 instead of 123 naive taps.
 
 Grids are (nz, ny, nx); radii are in voxel units and may be fractional.
 """

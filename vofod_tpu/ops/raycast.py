@@ -6,15 +6,15 @@ ray spends in each voxel (ref src/vofod_nodelet.cpp:1396-1606 raycast_cloud,
 src/voxel_map.cpp:229-263 forEachRay).  The result feeds an EMA update that
 pulls ray-swept voxels toward the "ray" (empty) score.
 
-Two TPU implementations:
+Two implementations:
 
 * :func:`raycast_dda` — exact vectorized DDA (lax.scan over ray steps +
   one scatter-add).  Bit-faithful to the reference traversal; used as the
   correctness oracle and as an opt-in "exact" mode.  The 9.4M-element
-  scatter-add serializes on TPU (~63 ms measured on v5e), so it is not the
-  production path.
+  scatter-add was the costliest op of the step before GPU measurements
+  existed, so it is not the production path (ROADMAP.md §3.3 re-decides).
 
-* :func:`raycast_sweep` — the TPU-native redesign: a gather/scatter-free
+* :func:`raycast_sweep` — the production redesign: a gather/scatter-free
   plane-sweep transmittance propagation.  Rays are straight lines from one
   origin, so per-voxel transmittance T (fraction of rays from the sensor that
   reach the voxel unobstructed) obeys a recurrence along any axis-aligned
@@ -52,6 +52,7 @@ from jax import lax
 from vofod_tpu.geometry import GridSpec
 
 Array = jnp.ndarray
+_HIGHEST = lax.Precision.HIGHEST
 
 
 # =============================================================================
@@ -252,7 +253,7 @@ def _sweep_cones_lat_sharded(
     """:func:`_sweep_cones` with the lateral A axis sharded over mesh axis
     ``axis`` (grid-sharded x/y cones: A = the Z grid axis).  Per plane step
     the post-B-lerp carry exchanges its A-halo rows (1 low, 2 high — the
-    4-tap support) with the neighbor shards over ICI; global edges fill 1.0
+    4-tap support) with the neighbor shards; global edges fill 1.0
     exactly like :func:`_shifted`.  Arithmetic per interior element is
     identical to the unsharded scan.  Must run inside shard_map.
 
@@ -313,8 +314,8 @@ def _sweep_cones_z_transposed(
     all_to_all, instead of sweep-sharded/pipelined: each shard sweeps all nz
     planes over a 1/n-wide y slab, so per-shard FLOPs drop n× relative to
     :func:`_sweep_cones_z_pipelined` (which replays the full-plane scan n
-    times and keeps one round per shard).  Two volume all_to_alls (bf16, over
-    ICI) bracket the scan; wall-clock keeps the inherent nz sequential plane
+    times and keeps one round per shard).  Two volume all_to_alls (bf16)
+    bracket the scan; wall-clock keeps the inherent nz sequential plane
     steps but each step touches 1/n of the plane.
 
     When the (windowed) y extent doesn't divide n, alignment pad rows are
@@ -408,7 +409,7 @@ def _sweep_cones_z_pipelined(
 # (world-frame cone axes; tiny one-hot matmuls), and each face is expanded
 # onto the voxel grid separably (texel coords u' = lat_A/sweep, v' = lat_B/
 # sweep depend on one lateral axis each) — two small batched einsums per cone
-# group, riding the MXU.
+# group.
 
 
 class AngularGate(NamedTuple):
@@ -551,8 +552,10 @@ def _row_from_elevation(gate: AngularGate, el: Array) -> Array:
         0, H - 2,
     )  # [P] segment index
     onehot = (idx[:, None] == jnp.arange(H - 1)[None, :]).astype(jnp.float32)
-    f0 = onehot @ f[:-1]  # [P]
-    f1 = onehot @ f[1:]
+    # full f32: TF32 would round the selected elevations to ~1e-3 rad, a
+    # sizeable fraction of one row's spacing
+    f0 = jnp.matmul(onehot, f[:-1], precision=_HIGHEST)  # [P]
+    f1 = jnp.matmul(onehot, f[1:], precision=_HIGHEST)
     return idx.astype(jnp.float32) + (t - f0) / (f1 - f0)
 
 
@@ -578,7 +581,8 @@ def gate_faces(gate: AngularGate, active_hw: Array, rot_s2w: Array) -> Array:
     )  # [V', H']
 
     d_w = jnp.asarray(gate.face_dirs.reshape(-1, 3))  # [P, 3] static
-    d_s = d_w @ rot_s2w  # sensor frame: s = Rᵀ w  (row-vector form)
+    # sensor frame: s = Rᵀ w (row-vector form), full f32 like the row table
+    d_s = jnp.matmul(d_w, rot_s2w, precision=_HIGHEST)
     el = jnp.arcsin(jnp.clip(d_s[:, 2], -1.0, 1.0))
     az = jnp.arctan2(d_s[:, 1], d_s[:, 0])
 
@@ -607,7 +611,9 @@ def gate_faces(gate: AngularGate, active_hw: Array, rot_s2w: Array) -> Array:
     # the wrap tents overlap/gap slightly at the seam
     w_c = w_c / jnp.maximum(w_c.sum(axis=-1, keepdims=True), 1e-6)
 
-    vals = jnp.sum(w_r * (w_c @ G.T), axis=-1)  # [P]
+    vals = jnp.sum(
+        w_r * jnp.matmul(w_c, G.T, precision=_HIGHEST), axis=-1
+    )  # [P]
     F = gate.face_dirs.shape[1]
     return vals.reshape(6, F, F)
 
@@ -633,6 +639,9 @@ def _expand_gate(faces: Array, rel_s: Array, rel_a: Array, rel_b: Array) -> Arra
             jnp.bfloat16
         )
 
+    # bf16 by design: tent weights and the gate face in bf16 (8 mantissa
+    # bits) keep the gate factor within ~0.4% relative — second-order for
+    # the ray EMA, inside the sweep's documented error budget (DESIGN.md §9)
     wu = tent(u)  # [nS, C, nA, F]
     wv = tent(v)  # [nS, C, nB, F]
     tmp = jnp.einsum("scaf,cfg->scag", wu, faces.astype(jnp.bfloat16))
@@ -672,9 +681,8 @@ def raycast_sweep(
         (cfg.raycast_max_distance_bound).  When given, the sweep runs on a
         static x/y window of ±(bound/voxel + margin) voxels around the
         sensor — everything farther is masked to 0 by ``in_range`` anyway,
-        and the sweep cost is proportional to swept volume (measured, see
-        DESIGN.md §7), so the flagship window is ~4× cheaper than the full
-        frame.  Values inside range are unchanged up to the smoothing-tail
+        and the sweep cost is proportional to swept volume, so the
+        flagship window sweeps ~4× less volume than the full frame.  Values inside range are unchanged up to the smoothing-tail
         influence of blockers beyond bound+margin (≲1e-3 relative; the
         window edge fills 1.0 = empty space, exactly like the grid edge).
 
@@ -891,9 +899,10 @@ def raycast_sweep_zsharded(
     """:func:`raycast_sweep` over a grid Z-sharded across ``n_shards`` mesh
     devices (``opaque`` is the local (nz/n, ny, nx) slab; must run inside
     shard_map).  The x/y cone group runs lateral-sharded (per-plane carry
-    halos over ICI, :func:`_sweep_cones_lat_sharded`); the z cone group runs
+    halos between devices, :func:`_sweep_cones_lat_sharded`); the z cone group runs
     per ``zcone_mode``: ``"pipelined"`` = sweep-sharded rounds
-    (:func:`_sweep_cones_z_pipelined` — compute replicated n×, minimal ICI),
+    (:func:`_sweep_cones_z_pipelined` — compute replicated n×, minimal
+    traffic between devices),
     ``"transpose"`` = all_to_all to lateral(Y)-sharded and back
     (:func:`_sweep_cones_z_transposed` — per-shard FLOPs 1/n, two bf16
     volume all_to_alls).  Both modes match the unsharded sweep bit-for-bit

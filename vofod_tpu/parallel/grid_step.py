@@ -1,11 +1,11 @@
-"""Grid-sharded full detection step: one operation area across many chips.
+"""Grid-sharded full detection step: one operation area across many devices.
 
 The stream-DP path (parallel/sharding.py) scales the number of independent
 sensor feeds; THIS module scales a single feed's operation area beyond one
-chip's HBM, the axis SURVEY.md §5 names for giant maps (the reference caps
+device's memory, the axis SURVEY.md §5 names for giant maps (the reference caps
 its VoxelMap at one machine's RAM; its 2.47M-voxel sim workload uses ~10 MB;
 a 0.5 m voxel over a 500 m × 500 m × 250 m oparea is ~2 GB of f32 state —
-already several chips' worth once the pipeline's working set (halos, pools,
+already several devices' worth once the pipeline's working set (halos, pools,
 label keys, sweep carries) multiplies it).  Flat voxel ids and label keys
 are int32 with a seed-flag offset of n_voxels, so the supported ceiling is
 n_voxels ≤ 2^30 (~4 GB of f32 grid per array) — validated with a clear
@@ -13,12 +13,12 @@ error in :func:`make_grid_sharded_step`; beyond that the id math would need
 int64 throughout.
 
 Design: the confidence grid and the sepclusters warm-start mask shard along
-Z (the leading, non-lane grid axis — shards keep full (8, 128) sublane/lane
-tiles).  The WHOLE step runs inside ONE shard_map with the stage code of
+Z (the leading, slowest-varying grid axis, so each shard is one contiguous
+block).  The WHOLE step runs inside ONE shard_map with the stage code of
 pipeline/*.py unchanged — every dense-grid primitive routes through
 parallel/gridops.ZShardOps:
 
-* stencil pools / label propagation: halo slabs over ICI per sweep
+* stencil pools / label propagation: halo slabs between devices per sweep
   (multi-hop when the halo exceeds the shard height);
 * point binning: the scan is replicated (131k points ≪ grid); each shard
   scatters only locally-owned points — no all-to-all at all;
@@ -37,13 +37,12 @@ mesh), so the sharded step is a drop-in for oversized operation areas.
 
 The module also composes BOTH scaling axes: :func:`make_fleet_grid_step`
 runs N data-parallel streams, each with its grid Z-sharded, in one
-shard_map over a 2D (data, grid) mesh — a fleet sharing one beyond-HBM map
-geometry on a pod slice (tests/test_fleet_grid.py pins per-stream
+shard_map over a 2D (data, grid) mesh — a fleet sharing one map geometry
+too large for one device (tests/test_fleet_grid.py pins per-stream
 bit-equality with the dense step).
 
-Cost model (v5e): steady-state halo traffic per step is ~stencil_sweeps ×
-2r × ny × nx × 4 B ≈ a few MB over ICI — negligible against the ~ms of
-stencil compute it overlaps with.  The z-cone pipeline is the one
+Cost model: steady-state halo traffic per step is ~stencil_sweeps ×
+2r × ny × nx × 4 B ≈ a few MB between devices per step.  The z-cone pipeline is the one
 sequential stage: wall-clock equal to the unsharded sweep (the recurrence
 is inherently ordered), compute replicated n×, memory 1/n — acceptable
 because the z cones are the cheapest pair (nz ≪ nx, ny in every real
@@ -149,11 +148,12 @@ def make_grid_sharded_step(
 
     ``zcone_mode`` selects the sweep raycast's z-cone strategy (bit-identical
     results either way, ops/raycast.py raycast_sweep_zsharded): "pipelined"
-    replays the full-plane scan once per shard (minimal ICI, compute
-    replicated n×); "transpose" all_to_alls the cone volume to
+    replays the full-plane scan once per shard (minimal traffic between
+    devices, compute replicated n×); "transpose" all_to_alls the cone volume to
     lateral-sharded and back so per-shard z-cone FLOPs drop n× — prefer it
     once n is large enough that the replicated full-plane z scan rivals the
-    sharded x/y group's per-shard work (n ≳ 3 on the flagship geometry).
+    sharded x/y group's per-shard work (expected at n ≳ 3 on the flagship
+    geometry; not measured on the GPU yet).
     """
     n = int(mesh.shape[axis])
     _validate_grid_sharding(cfg, n, axis)
@@ -204,8 +204,8 @@ def make_fleet_grid_mesh(
     """2D device mesh: ``n_data`` stream groups x ``n_grid`` grid shards.
 
     The grid axis is the mesh's MINOR (fastest-varying) dimension so the
-    per-step halo/ppermute traffic of one stream's grid shards rides
-    adjacent-device ICI links; stream groups never communicate.
+    per-step halo/ppermute traffic stays between one stream group's
+    devices; stream groups never communicate.
     """
     if n_data < 1 or n_grid < 1:
         raise ValueError(
@@ -268,8 +268,8 @@ def make_fleet_grid_step(
 ):
     """Both scaling axes in ONE program: N sensor streams data-parallel over
     ``data_axis``, each stream's oversized operation area Z-sharded over
-    ``grid_axis`` — a fleet of UAVs sharing one beyond-HBM map geometry on a
-    pod slice (reference scope: one map, one machine — vofod_nodelet.cpp
+    ``grid_axis`` — a fleet of UAVs sharing one map geometry too large for
+    one device (reference scope: one map, one machine — vofod_nodelet.cpp
     holds a single VoxelMap under a mutex; SURVEY.md §5 scaling axis).
 
     Signature: ``(state, scans, dyn) -> (state, outs)`` where every scan/out

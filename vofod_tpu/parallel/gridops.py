@@ -7,13 +7,13 @@ module defines that primitive set as a provider object so the SAME stage
 code (pipeline/frontend.py, background.py, classify.py, detect.py,
 sepclusters.py, step.py) runs in two modes:
 
-* :class:`DenseOps` — the grid lives on one chip; primitives are the plain
-  ops from ``vofod_tpu.ops`` (this is the production single-chip path and is
+* :class:`DenseOps` — the grid lives on one device; primitives are the plain
+  ops from ``vofod_tpu.ops`` (this is the production one-device path and is
   byte-identical to the pre-seam code).
 
 * :class:`ZShardOps` — the grid is sharded along Z over a mesh axis and the
   stage code executes inside ``shard_map``.  Stencils exchange halo slabs
-  over ICI (``jax.lax.ppermute``), histograms scatter only locally-owned
+  between devices (``jax.lax.ppermute``), histograms scatter only locally-owned
   points, compactions merge per-shard lists (ascending flat ids are shard-
   major because Z is the leading grid axis, so concatenation preserves
   order), submap reads ride halo exchange + one small ``psum``, and the
@@ -23,7 +23,7 @@ sepclusters.py, step.py) runs in two modes:
 The sharded implementations are arithmetic-identical per element — the grid-
 sharded step is tested bit-for-bit against the unsharded step on an 8-device
 mesh (tests/test_grid_step.py).  This is the scaling axis SURVEY.md §5 calls
-out for operation areas beyond one chip's HBM (the reference caps its map at
+out for operation areas beyond one device's memory (the reference caps its map at
 one machine's RAM; workload 2.47M voxels, config/apriori_maps/sim.yaml:8-15).
 """
 
@@ -603,7 +603,8 @@ class ZShardOps:
         Per voxel the accumulation order equals the unsharded scatter's
         (emissions keep their (step, ray) order; dropping non-owned entries
         cannot reorder a voxel's own adds), so the result is bit-exact —
-        this is the parity mode for beyond-HBM operation areas."""
+        this is the parity mode for operation areas beyond one device's
+        memory."""
         fids, ws = dda_emissions(grid, starts, dirs, lengths, valid, max_length)
         nzl = grid.nz // self.n
         nynx = grid.ny * grid.nx

@@ -1,22 +1,22 @@
 """Multi-chip scaling: data-parallel scan streams + grid-sharded stencils.
 
 The reference's concurrency is threads over one shared map on one machine
-(SURVEY.md §2 parallelism inventory).  The TPU-native scaling axes are:
+(SURVEY.md §2 parallelism inventory).  The scaling axes here are:
 
 * **Stream data-parallelism** (production serving): one detector state per
   sensor stream, sharded over the mesh "data" axis with shard_map — N
-  independent UAV/sensor feeds per pod slice, zero cross-chip traffic in
+  independent UAV/sensor feeds per mesh, zero cross-device traffic in
   steady state.  :func:`make_batched_step` builds this.  Inside each shard
   the local streams run through the UNBATCHED step under lax.scan
-  (sequential per chip): vmap-batching the step was measured to be a 2.5x
-  pessimization on one chip (B=2: 59 vs 151 scans/s total, DESIGN.md §6 —
-  the explore submap dynamic-slices and compaction row-gathers lower to
-  serialized batched gathers), while the scan keeps every stream's program
-  identical to the single-stream hot path, so per-chip throughput is exactly
-  serial and scaling across chips is linear.
+  (sequential per device): the scan keeps every stream's program identical
+  to the single-stream hot path, so per-device throughput is exactly serial
+  and scaling across devices is linear.  vmap batching (whose explore
+  submap dynamic-slices and compaction row-gathers become batched gathers)
+  lost to the scan before GPU measurements existed; ROADMAP.md §1.4 queues
+  the GPU comparison.
 
 * **Grid sharding** (single giant operation areas): the dense grid is split
-  along Z across chips; stencil ops exchange halos over ICI with
+  along Z across devices; stencil ops exchange halos between devices with
   jax.lax.ppermute inside shard_map.  :func:`halo_ball_pool_min` demonstrates
   the pattern for the ball-pool stencil that dominates the pipeline.
 """
@@ -118,7 +118,7 @@ def make_batched_step(
 
 
 def _halo_pool(grid: jnp.ndarray, radius: float, mesh: Mesh, axis: str, op: str):
-    """Ball pool over a grid sharded along Z, halos exchanged over ICI.
+    """Ball pool over a grid sharded along Z, halos exchanged between devices.
 
     Each shard sends its boundary slabs of thickness r to the neighbors with
     jax.lax.ppermute, pads, pools locally, and crops — numerically identical

@@ -56,6 +56,48 @@ class ClassifyOut(NamedTuple):
     labels_converged: Array
 
 
+_BIG = 3.0e38
+# f32 matmuls below run at full precision: at default precision a GPU may use
+# TF32 (~10 mantissa bits), which moves OBB sizes near the gate thresholds of
+# clusters ~100 m from the world origin
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def pca_obb(centers: Array, slot: Array):
+    """PCA oriented bounding box per cluster slot (replaces PCL
+    MomentOfInertiaEstimation, ref :1655-1673).
+
+    centers: f32 [F, 3] member voxel centers (world); slot: bool [F, K]
+    membership.  Returns (obb_center [K, 3], axes [K, 3, 3] rows = major,
+    middle, minor, right-handed; half extents [K, 3]; OBB diagonal [K])."""
+    mvalid = slot[:, :, None]
+    denom = jnp.maximum(slot.sum(axis=0), 1).astype(jnp.float32)
+    mean = jnp.matmul(
+        slot.astype(jnp.float32).T, centers, precision=_HIGHEST
+    ) / denom[:, None]  # [K, 3]
+    d = centers[:, None, :] - mean[None, :, :]  # [F, K, 3]
+    dm = jnp.where(mvalid, d, 0.0)
+    cov = jnp.einsum(
+        "fki,fkj->kij", dm, dm, precision=_HIGHEST
+    ) / denom[:, None, None]
+    cov = cov + 1e-6 * jnp.eye(3)[None]
+    evals, evecs = eigh3(cov)  # ascending; evecs columns (closed form)
+    # major/middle/minor ordering, right-handed (PCL MoI convention)
+    axes_cols = jnp.flip(evecs, axis=-1)  # columns: major, middle, minor
+    major, middle = axes_cols[:, :, 0], axes_cols[:, :, 1]
+    minor = jnp.cross(major, middle)
+    axes = jnp.stack([major, middle, minor], axis=1)  # rows = axes [K, 3, 3]
+    proj = jnp.einsum("fkj,kaj->fka", d, axes, precision=_HIGHEST)  # [F, K, 3]
+    pmin = jnp.min(jnp.where(mvalid, proj, _BIG), axis=0)
+    pmax = jnp.max(jnp.where(mvalid, proj, -_BIG), axis=0)
+    obb_center = mean + jnp.einsum(
+        "kaj,ka->kj", axes, (pmin + pmax) / 2.0, precision=_HIGHEST
+    )
+    obb_extent = (pmax - pmin) / 2.0
+    obb_size = jnp.linalg.norm(pmax - pmin, axis=-1)  # OBB diagonal
+    return obb_center, axes, obb_extent, obb_size
+
+
 def classify(
     cfg: VoFODConfig,
     dyn: DynParams,
@@ -82,9 +124,9 @@ def classify(
 
     # --- distinct component labels into K slots (ascending) -----------------
     # rank-based (one [F, F] compare pass + a K-element scatter-min) instead
-    # of a K-step sequential min-above-previous scan: the scan's K tiny
-    # dispatches measured ~0.25 ms at K=32 on v5e.  reps[r] = the distinct
-    # label with exactly r smaller distinct labels — identical output.
+    # of a K-step sequential min-above-previous scan of K tiny dispatches.
+    # reps[r] = the distinct label with exactly r smaller distinct labels —
+    # identical output.
     lab = jnp.where(fvalid, flabels, SENTINEL)
     idx_f = jnp.arange(F)
     seen_before = jnp.any(
@@ -102,38 +144,18 @@ def classify(
     )
     slot_valid = reps < SENTINEL  # [K]
     slot = fvalid[:, None] & (flabels[:, None] == reps[None, :])  # [F, K]
-    slot_f = slot.astype(jnp.float32)
     # clusters beyond the K cap exist if some valid far voxel matched no slot
     cluster_overflow = jnp.any(fvalid & ~jnp.any(slot, axis=1))
 
     npts = slot.sum(axis=0).astype(jnp.int32)  # [K]
-    denom = jnp.maximum(npts, 1).astype(jnp.float32)
 
     # --- AABB over member voxel centers (ref MoI getAABB) --------------------
-    big = jnp.float32(3.0e38)
     cexp = centers[:, None, :]  # [F, 1, 3]
     mvalid = slot[:, :, None]
-    aabb_min = jnp.min(jnp.where(mvalid, cexp, big), axis=0)
-    aabb_max = jnp.max(jnp.where(mvalid, cexp, -big), axis=0)
+    aabb_min = jnp.min(jnp.where(mvalid, cexp, _BIG), axis=0)
+    aabb_max = jnp.max(jnp.where(mvalid, cexp, -_BIG), axis=0)
 
-    # --- PCA OBB (replaces PCL MomentOfInertiaEstimation, ref :1655-1673) ----
-    mean = (slot_f.T @ centers) / denom[:, None]  # [K, 3]
-    d = centers[:, None, :] - mean[None, :, :]  # [F, K, 3]
-    dm = jnp.where(mvalid, d, 0.0)
-    cov = jnp.einsum("fki,fkj->kij", dm, dm) / denom[:, None, None]
-    cov = cov + 1e-6 * jnp.eye(3)[None]
-    evals, evecs = eigh3(cov)  # ascending; evecs columns (closed form)
-    # major/middle/minor ordering, right-handed (PCL MoI convention)
-    axes_cols = jnp.flip(evecs, axis=-1)  # columns: major, middle, minor
-    major, middle = axes_cols[:, :, 0], axes_cols[:, :, 1]
-    minor = jnp.cross(major, middle)
-    axes = jnp.stack([major, middle, minor], axis=1)  # rows = axes [K, 3, 3]
-    proj = jnp.einsum("fkj,kaj->fka", d, axes)  # [F, K, 3]
-    pmin = jnp.min(jnp.where(mvalid, proj, big), axis=0)
-    pmax = jnp.max(jnp.where(mvalid, proj, -big), axis=0)
-    obb_center = mean + jnp.einsum("kaj,ka->kj", axes, (pmin + pmax) / 2.0)
-    obb_extent = (pmax - pmin) / 2.0
-    obb_size = jnp.linalg.norm(pmax - pmin, axis=-1)  # OBB diagonal
+    obb_center, axes, obb_extent, obb_size = pca_obb(centers, slot)
 
     # --- gates (ref :1679-1690) ----------------------------------------------
     dist = jnp.linalg.norm(obb_center - sensor_pos[None, :], axis=-1)
@@ -153,8 +175,8 @@ def classify(
 
     # dense mask of member voxels of gated clusters -> second compaction
     rep_sel = jnp.where(qgate, reps, jnp.int32(-2))  # -2 matches nothing
-    # broadcast compare instead of jnp.isin: measured ~0.9 ms -> ~0.1 ms on
-    # v5e (isin's sorting-based lowering loses badly at K=32 set size)
+    # broadcast compare instead of jnp.isin, whose sorting-based lowering
+    # is the slower form at a K=32 set size
     qmask = far & jnp.any(
         labels[..., None] == rep_sel, axis=-1
     )

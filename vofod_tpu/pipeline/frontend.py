@@ -93,8 +93,7 @@ def run_frontend_prebinned(
     native/frontend.cpp): the host already filtered, transformed and
     histogrammed the scan into a packed dense uint8 grid, so binning
     collapses to a pure elementwise unpack — the 131k-point histogram
-    scatter (~1.5 ms serialized on v5e, the step's single most expensive op)
-    disappears from the device entirely.
+    scatter disappears from the device entirely.
 
     Bit-equivalent to :func:`run_frontend`: the 6-bit count clamp matches
     the EMA's own clamp-at-63 (pipeline/background.py), and the blocker bit

@@ -6,7 +6,7 @@ active only when some cluster holds >= min_sure_points "sure" voxels, and
 (c) demotes every voxel within max_bg_distance of an *unsure* cluster toward
 the ray score with weight 0.5 per elapsed detection iteration.
 
-TPU formulation (dense, gather/scatter-free):
+Dense formulation (gather/scatter-free):
 
 * cluster membership "has >= N sure voxels" is evaluated as seeded
   reachability: seeds are sure voxels whose local ball already holds >= N
@@ -317,7 +317,7 @@ def run_sepclusters_exact(
     (requires the shard height divisible by the leaf size — validated by
     make_grid_sharded_step), labels/census/demotion route through the
     provider's halo'd pools + psum'd census; results match the unsharded
-    path bit-for-bit so parity studies run at beyond-HBM scale.  The
+    path bit-for-bit so parity studies run beyond one device's memory.  The
     counted-indexing quirk composes too (:func:`_quirk_sure_counts_sharded`)
     at the cost of one replicated full-grid-sized rank table (see its
     memory note).

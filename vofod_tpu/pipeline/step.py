@@ -26,7 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from vofod_tpu.config import DynParams, VoFODConfig
-from vofod_tpu.geometry import GridSpec
+from vofod_tpu.geometry import GridSpec, se3_apply, se3_rotate
 from vofod_tpu.ops.raycast import gate_faces, make_angular_gate
 from vofod_tpu.parallel.gridops import DENSE
 from vofod_tpu.pipeline.background import split_and_update
@@ -145,8 +145,8 @@ def _make_step_fn(
 ) -> Callable[[VoFODState, ScanInput, DynParams], tuple[VoFODState, StepOutput]]:
     """Build the jitted step function.
 
-    raycast_mode: "sweep" (TPU-native transmittance sweep, production),
-      "exact" (per-ray DDA + scatter; bit-faithful, slow on TPU), or
+    raycast_mode: "sweep" (gather/scatter-free transmittance sweep,
+      production), "exact" (per-ray DDA + scatter; bit-faithful), or
       "off".
     frontend_mode: "raw" (the step takes ScanInput and bins on device) or
       "prebinned" (the step takes PrebinnedScan from io/binner.py — the host
@@ -283,8 +283,8 @@ def _make_step_fn(
                 r = jnp.where(
                     jnp.isnan(r) | (r < 0.0), 0.0, jnp.minimum(r, 4.0e6)
                 )
-                dirs_w = lut_dirs @ rot.T
-                starts = lut_offs @ rot.T + sensor_pos[None, :]
+                dirs_w = se3_rotate(pose, lut_dirs)
+                starts = se3_apply(pose, lut_offs)
                 max_d = dyn.raycast_max_distance
                 lengths = jnp.where(
                     r == 0.0, max_d, jnp.minimum(r - cfg.voxel_size, max_d)

@@ -42,8 +42,13 @@ def _abstract_like(state):
 
 
 def _ocp():
-    import orbax.checkpoint as ocp
-
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "checkpoint directories need the orbax-checkpoint package, "
+            "which is not installed; save to a *.npz path instead"
+        ) from e
     return ocp
 
 

@@ -55,10 +55,9 @@ class ParamWatcher:
             return None
         self._mtime = mtime
         try:
-            import yaml
+            from vofod_tpu.io.yaml_lite import load_file
 
-            with open(self.path) as f:
-                doc = yaml.safe_load(f) or {}
+            doc = load_file(self.path) or {}
             # rebase on the node's LIVE params: a partial file overrides only
             # the keys it names — params tuned at startup (or by an earlier
             # poll) and then omitted from the file must not snap back to the

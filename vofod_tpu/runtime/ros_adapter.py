@@ -1,7 +1,7 @@
 """Optional ROS 1 adapter: maps the framework onto the reference's topics.
 
 The reference is a ROS Noetic nodelet (nodelets.xml, launch/detect.launch);
-this adapter reproduces its wire interface on top of the TPU pipeline when
+this adapter reproduces its wire interface on top of the JAX pipeline when
 ``rospy`` is importable (it is not part of the baked test environment — the
 adapter is import-safe; the pure conversion functions are unit-tested).
 

@@ -61,11 +61,10 @@ def load_viz_config(path: str | None = None) -> VizColors:
     out = VizColors()
     if not path:
         return out
-    import yaml
+    from vofod_tpu.io.yaml_lite import load_file
 
     try:
-        with open(path) as f:
-            d = yaml.safe_load(f) or {}
+        d = load_file(path) or {}
     except OSError:
         return out
     for section, dst in (("voxel_map", out.vmap), ("voxel_flags", out.vflags)):

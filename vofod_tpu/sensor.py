@@ -1,6 +1,6 @@
 """Sensor model: per-pixel ray LUT, FOV mask, destaggering.
 
-TPU-native equivalent of the reference sensor layer
+Equivalent of the reference sensor layer
 (src/vofod_nodelet.cpp:357-560): builds the per-pixel ray ``directions`` and
 ``offsets`` lookup tables either from an ideal spherical model (simulation,
 ref :374-420) or from Ouster beam calibration angles (ref :358-371, via

@@ -47,9 +47,9 @@ def main(argv=None):
         "--frontend",
         default="raw",
         choices=["raw", "prebinned", "auto"],
-        help="prebinned = the production serving ingest (host bins via "
-        "native/frontend.cpp; sweep raycast only); auto = probe the "
-        "transport at startup and pick the cheaper ingest (DESIGN §7)",
+        help="prebinned = the host bins each scan (native/frontend.cpp; "
+        "sweep raycast only); auto = time both ingests once at startup "
+        "and pick the cheaper (io/binner.py probe_ingest_mode)",
     )
     ap.add_argument(
         "--small-capacities",
@@ -82,8 +82,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from vofod_tpu.config import DynParams, VoFODConfig, load_config
+    from vofod_tpu.runtime.compile_cache import enable_compile_cache
     from vofod_tpu.runtime.node import NodeOptions, VoFOD
 
+    enable_compile_cache()
     if args.config or args.sensor or args.map_yaml:
         # every file is optional in load_config — honor --sensor/--map even
         # without a detection_params.yaml
